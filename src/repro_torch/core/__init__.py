@@ -2,8 +2,8 @@
 uses (on-disk formats identical to ``repro.core``)."""
 from .delivery import Consumer, ConsumerGroup, OffsetStore, StaleGeneration
 from .log import CorruptRecord, PartitionedLog, route_partition
-from .logstore import LogRecord, LogStore
+from .logstore import LogRecord
 
 __all__ = ["Consumer", "ConsumerGroup", "CorruptRecord", "LogRecord",
-           "LogStore", "OffsetStore", "PartitionedLog", "StaleGeneration",
+           "OffsetStore", "PartitionedLog", "StaleGeneration",
            "route_partition"]

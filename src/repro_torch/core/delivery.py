@@ -13,7 +13,8 @@ import json
 import threading
 from pathlib import Path
 
-from .logstore import LogRecord, LogStore, atomic_write_bytes
+from .log import PartitionedLog
+from .logstore import LogRecord, atomic_write_bytes
 
 
 class OffsetStore:
@@ -129,7 +130,7 @@ class StaleGeneration(Exception):
 class ConsumerGroup:
     """Tracks membership and rebalances partition assignment on change."""
 
-    def __init__(self, log: LogStore, topic: str, group_id: str,
+    def __init__(self, log: PartitionedLog, topic: str, group_id: str,
                  offset_store: OffsetStore | None = None) -> None:
         self.log = log
         self.topic = topic

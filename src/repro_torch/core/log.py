@@ -18,6 +18,13 @@ scanned and any torn/corrupt suffix (partial write at crash) is truncated.
 a time. Appends are buffered; a read flushes a partition's write buffer
 when it trails the append watermark, and ``close`` flushes the rest.
 Reads use one ``pread(2)`` per range, parsed from a ``memoryview``.
+
+The contract the server and the consumer group rely on (all methods
+thread-safe): topics are created explicitly with a fixed partition count;
+appends assign dense consecutive offsets per partition; ``read`` returns
+records ``[offset, offset+n)`` of one partition in offset order, so readers
+may trail and replay; ``begin_offset``/``end_offset`` bound the retained
+range.
 """
 from __future__ import annotations
 
@@ -28,13 +35,13 @@ import zlib
 from pathlib import Path
 from typing import Sequence
 
-from .logstore import LogRecord, LogStore
+from .logstore import LogRecord
 
-__all__ = ["CorruptRecord", "LogRecord", "PartitionedLog",
-           "DEFAULT_SEGMENT_BYTES", "route_partition"]
+__all__ = ["CorruptRecord", "LogRecord", "PartitionedLog", "SEGMENT_BYTES",
+           "route_partition"]
 
 _HEADER = struct.Struct("<III")  # crc, key_len, val_len
-DEFAULT_SEGMENT_BYTES = 8 << 20  # 8 MiB segments
+SEGMENT_BYTES = 8 << 20  # a segment rolls once it holds 8 MiB
 
 
 class CorruptRecord(Exception):
@@ -170,9 +177,8 @@ class _Segment:
 
 
 class _Partition:
-    def __init__(self, path: Path, segment_bytes: int) -> None:
+    def __init__(self, path: Path) -> None:
         self.path = path
-        self.segment_bytes = segment_bytes
         self.lock = threading.Lock()
         path.mkdir(parents=True, exist_ok=True)
         bases = sorted(int(p.stem) for p in path.glob("*.seg"))
@@ -212,11 +218,11 @@ class _Partition:
             i, n = 0, len(records)
             hsize = _HEADER.size
             while i < n:
-                if self.active.bytes >= self.segment_bytes:
+                if self.active.bytes >= SEGMENT_BYTES:
                     self._roll_locked()
                 # records that keep this segment under its size limit at the
                 # moment each is written (a lone record always fits)
-                cap = self.segment_bytes - self.active.bytes
+                cap = SEGMENT_BYTES - self.active.bytes
                 j, size = i, 0
                 while j < n and size < cap:
                     k, v = records[j]
@@ -257,14 +263,13 @@ class _Partition:
                 s.close()
 
 
-class PartitionedLog(LogStore):
-    """Multi-topic durable log on one host. Thread-safe."""
+class PartitionedLog:
+    """Multi-topic durable log on one host. Thread-safe. ``root`` also
+    holds the consumer groups' committed offsets."""
 
-    def __init__(self, root: str | Path,
-                 segment_bytes: int = DEFAULT_SEGMENT_BYTES) -> None:
+    def __init__(self, root: str | Path) -> None:
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
-        self.segment_bytes = segment_bytes
         self._topics: dict[str, list[_Partition]] = {}
         self._lock = threading.Lock()
         # re-open any topics already on disk (crash recovery)
@@ -274,10 +279,11 @@ class PartitionedLog(LogStore):
                                if p.is_dir())
                 if parts:
                     self._topics[tdir.name] = [
-                        _Partition(tdir / str(i), segment_bytes)
+                        _Partition(tdir / str(i))
                         for i in range(max(parts) + 1)]
 
     def create_topic(self, topic: str, partitions: int = 1) -> None:
+        """Idempotent; raises if the topic exists with a different count."""
         with self._lock:
             if topic in self._topics:
                 if len(self._topics[topic]) != partitions:
@@ -286,7 +292,7 @@ class PartitionedLog(LogStore):
                         f"{len(self._topics[topic])} partitions")
                 return
             self._topics[topic] = [
-                _Partition(self.root / topic / str(i), self.segment_bytes)
+                _Partition(self.root / topic / str(i))
                 for i in range(partitions)]
 
     def num_partitions(self, topic: str) -> int:
@@ -335,6 +341,9 @@ class PartitionedLog(LogStore):
 
     def end_offset(self, topic: str, partition: int) -> int:
         return self._part_list(topic)[partition].end_offset
+
+    def end_offsets(self, topic: str) -> list[int]:
+        return [p.end_offset for p in self._part_list(topic)]
 
     def close(self) -> None:
         with self._lock:

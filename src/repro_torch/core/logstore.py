@@ -1,26 +1,14 @@
-"""LogStore — the storage contract the serving path programs against.
-
-The port's own copy of the part of ``repro.core.logstore`` that the server
-and its launcher use. The contract (all methods thread-safe):
-
-  * topics are created explicitly with a fixed partition count;
-  * ``append``/``append_batch`` assign dense consecutive offsets per
-    partition and are at-least-once from the producer's view;
-  * ``read`` returns committed records ``[offset, offset+n)`` of one
-    partition in offset order — readers may trail arbitrarily and replay;
-  * ``begin_offset``/``end_offset`` bound the retained range;
-  * ``close`` flushes what was appended.
-"""
+"""The record type the serving path reads and the crash-safe file replace
+its committed offsets use — the port's own copy of that part of
+``repro.core.logstore``."""
 from __future__ import annotations
 
-import abc
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
 
 
-def atomic_write_bytes(path: Path, data: bytes, *, fsync: bool = True) -> None:
+def atomic_write_bytes(path: Path, data: bytes) -> None:
     """Crash-safe whole-file replace: write a tmp file, fsync its fd, rename
     over ``path``, then fsync the parent directory. The plain
     ``write + os.replace`` idiom is only atomic against a *process* crash —
@@ -32,20 +20,18 @@ def atomic_write_bytes(path: Path, data: bytes, *, fsync: bool = True) -> None:
         view = memoryview(data)
         while view:                # os.write may land short: never fsync +
             view = view[os.write(fd, view):]   # rename a truncated payload
-        if fsync:
-            os.fsync(fd)
+        os.fsync(fd)
     finally:
         os.close(fd)
     os.replace(tmp, path)
-    if fsync:
-        try:
-            dfd = os.open(path.parent, os.O_RDONLY)
-        except OSError:            # platforms without O_RDONLY dir opens
-            return
-        try:
-            os.fsync(dfd)
-        finally:
-            os.close(dfd)
+    try:
+        dfd = os.open(path.parent, os.O_RDONLY)
+    except OSError:                # platforms without O_RDONLY dir opens
+        return
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
 
 
 @dataclass(frozen=True, slots=True)
@@ -57,48 +43,3 @@ class LogRecord:
     offset: int
     key: bytes
     value: bytes
-
-
-class LogStore(abc.ABC):
-    """Abstract durable partitioned pub-sub log. Concrete stores expose
-    ``root``, a directory that namespaces the store's on-disk state
-    (consumer-group offset stores default to living inside it)."""
-
-    root: Path
-
-    @abc.abstractmethod
-    def create_topic(self, topic: str, partitions: int = 1) -> None:
-        """Idempotent; raises if the topic exists with a different count."""
-
-    @abc.abstractmethod
-    def num_partitions(self, topic: str) -> int: ...
-
-    @abc.abstractmethod
-    def append(self, topic: str, key: bytes, value: bytes,
-               partition: int | None = None) -> tuple[int, int]:
-        """Append one record; returns ``(partition, offset)``. With
-        ``partition=None`` the record is routed by key hash."""
-
-    @abc.abstractmethod
-    def append_batch(self, topic: str,
-                     records: Sequence[tuple[bytes, bytes]],
-                     partition: int | None = None) -> list[tuple[int, int]]:
-        """Append many records; returns ``(partition, offset)`` per record
-        in input order."""
-
-    @abc.abstractmethod
-    def read(self, topic: str, partition: int, offset: int,
-             max_records: int = 512) -> list[LogRecord]: ...
-
-    @abc.abstractmethod
-    def begin_offset(self, topic: str, partition: int) -> int: ...
-
-    @abc.abstractmethod
-    def end_offset(self, topic: str, partition: int) -> int: ...
-
-    @abc.abstractmethod
-    def close(self) -> None: ...
-
-    def end_offsets(self, topic: str) -> list[int]:
-        return [self.end_offset(topic, p)
-                for p in range(self.num_partitions(topic))]

@@ -7,6 +7,14 @@ import torch
 NEG_INF = -1e30
 
 
+def causal_mask(s_q: int, s_kv: int, q_offset: int = 0,
+                device: torch.device | None = None) -> torch.Tensor:
+    """True where attention is allowed."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_kv, device=device)[None, :]
+    return qi >= kj
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,Hq,Sq,d); k/v: (B,Hkv,Skv,d) -> (B,Hq,Sq,d) in q's dtype."""
@@ -16,13 +24,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (d ** -0.5)
-    qi = torch.arange(sq, device=q.device)[:, None]
-    kj = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qi >= kj
-    if window:
-        mask &= (qi - kj) < window
+    mask = (causal_mask(sq, skv, device=q.device) if causal
+            else torch.ones((sq, skv), dtype=torch.bool, device=q.device))
+    if window:                      # keep i - j < window: drop i - window >= j
+        mask &= ~causal_mask(sq, skv, -window, q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

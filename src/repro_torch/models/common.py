@@ -17,6 +17,13 @@ from typing import Any
 
 import torch
 
+from ..kernels.flash_attention.ref import causal_mask
+from ..kernels.rmsnorm.ref import fused_residual_rmsnorm_plain
+
+__all__ = ["ArchConfig", "ParamDef", "apply_rope", "causal_mask",
+           "init_params", "param_template", "rms_norm", "rope_freqs",
+           "unflatten"]
+
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -132,10 +139,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    """RMSNorm with fp32 statistics: the plain version of the fused kernel
+    without a residual. ``causal_mask`` likewise is the flash kernel's."""
+    return fused_residual_rmsnorm_plain(x, None, scale, eps)[0]
 
 
 def rope_freqs(d_head: int, theta: float,
@@ -158,11 +164,3 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
-
-
-def causal_mask(s_q: int, s_kv: int, q_offset: int = 0,
-                device: torch.device | None = None) -> torch.Tensor:
-    """True where attention is allowed."""
-    qi = torch.arange(s_q, device=device)[:, None] + q_offset
-    kj = torch.arange(s_kv, device=device)[None, :]
-    return qi >= kj

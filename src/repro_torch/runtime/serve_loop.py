@@ -15,7 +15,8 @@ import torch
 
 from .. import resolve_device
 from ..core.delivery import Consumer
-from ..core.logstore import LogRecord, LogStore
+from ..core.log import PartitionedLog
+from ..core.logstore import LogRecord
 from ..data.tokenizer import ByteTokenizer
 from ..models.lm import Model
 
@@ -33,7 +34,7 @@ class Server:
     and a CUDA device without a card raises."""
 
     def __init__(self, model: Model, params: dict, consumer: Consumer,
-                 out_log: LogStore, scfg: ServeConfig,
+                 out_log: PartitionedLog, scfg: ServeConfig,
                  device: str | torch.device = "cuda") -> None:
         self.model = model
         self.params = params

@@ -1,6 +1,7 @@
 """The port's own copy of the log and consumer-group layer against the JAX
 package's: the on-disk formats are byte for byte the same, so either
 package reads the other's request logs and committed offsets."""
+import functools
 import json
 
 import pytest
@@ -10,10 +11,18 @@ from repro.core import PartitionedLog as JaxPartitionedLog
 from repro.core.delivery import range_assign as jax_range_assign
 from repro.core.sources import corpus_documents as jax_corpus_documents
 from repro_torch.core import ConsumerGroup, PartitionedLog, StaleGeneration
+from repro_torch.core import log as torch_log
 from repro_torch.core.delivery import range_assign
 from repro_torch.core.sources import corpus_documents
 
 SEGMENT_BYTES = 256          # small segments: the logs roll several times
+JaxSmallSegmentLog = functools.partial(JaxPartitionedLog,
+                                       segment_bytes=SEGMENT_BYTES)
+
+
+@pytest.fixture
+def small_segments(monkeypatch):
+    monkeypatch.setattr(torch_log, "SEGMENT_BYTES", SEGMENT_BYTES)
 
 
 def _records(n):
@@ -38,24 +47,24 @@ def _read_all(log):
 
 
 @pytest.mark.parametrize("writer,reader", [
-    (JaxPartitionedLog, PartitionedLog),
-    (PartitionedLog, JaxPartitionedLog),
+    (JaxSmallSegmentLog, PartitionedLog),
+    (PartitionedLog, JaxSmallSegmentLog),
 ], ids=["jax-to-port", "port-to-jax"])
-def test_request_log_crosses_packages(tmp_path, writer, reader):
+def test_request_log_crosses_packages(tmp_path, small_segments, writer,
+                                      reader):
     recs = _records(40)
-    _write(writer(tmp_path / "log", segment_bytes=SEGMENT_BYTES), recs)
-    log = reader(tmp_path / "log", segment_bytes=SEGMENT_BYTES)
+    _write(writer(tmp_path / "log"), recs)
+    log = reader(tmp_path / "log")
     got = _read_all(log)
     log.close()
     assert sorted((k, v) for _, _, k, v in got) == sorted(recs)
     assert len(list((tmp_path / "log" / "requests" / "2").glob("*.seg"))) > 1
 
 
-def test_segment_files_are_byte_identical(tmp_path):
+def test_segment_files_are_byte_identical(tmp_path, small_segments):
     recs = _records(40)
-    _write(JaxPartitionedLog(tmp_path / "a", segment_bytes=SEGMENT_BYTES),
-           recs)
-    _write(PartitionedLog(tmp_path / "b", segment_bytes=SEGMENT_BYTES), recs)
+    _write(JaxSmallSegmentLog(tmp_path / "a"), recs)
+    _write(PartitionedLog(tmp_path / "b"), recs)
     a = sorted(p.relative_to(tmp_path / "a")
                for p in (tmp_path / "a").rglob("*.seg"))
     b = sorted(p.relative_to(tmp_path / "b")
