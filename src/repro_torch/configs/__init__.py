@@ -1,8 +1,8 @@
 """Architecture registry: ``get(name)`` -> full ArchConfig,
 ``get_reduced(name)`` -> CPU-test-scale config of the same family.
 
-Only ``tinyllama-1.1b`` is ported; the other names of the JAX package's
-registry raise ``NotImplementedError``.
+``tinyllama-1.1b`` and ``mamba2-370m`` are ported; the other names of the
+JAX package's registry raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ ARCHS = (
     "qwen3-8b", "mamba2-370m", "whisper-large-v3", "hymba-1.5b",
     "olmoe-1b-7b", "deepseek-v2-lite-16b",
 )
-PORTED = ("tinyllama-1.1b",)
+PORTED = ("tinyllama-1.1b", "mamba2-370m")
 
 
 def _module(name: str):

@@ -12,8 +12,9 @@ from __future__ import annotations
 from .decode_attention.kernel import decode_attention
 from .flash_attention.kernel import flash_attention
 from .rmsnorm.kernel import fused_residual_rmsnorm
+from .ssd.kernel import ssd
 
-WRAPPERS = (fused_residual_rmsnorm, flash_attention, decode_attention)
+WRAPPERS = (fused_residual_rmsnorm, flash_attention, decode_attention, ssd)
 
 
 def launch_counts() -> dict[str, int]:

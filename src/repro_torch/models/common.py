@@ -89,7 +89,7 @@ class ArchConfig:
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"             # normal | ones
+    init: str = "normal"             # normal | ones | ssm_a | ssm_dt
     dtype: Any = torch.bfloat16
     fan_in: int | None = None
 
@@ -100,10 +100,23 @@ def param_template(cfg: ArchConfig) -> dict[str, ParamDef]:
     return families.template(cfg)
 
 
+def _uniform(d: ParamDef, generator: torch.Generator, device: torch.device,
+             lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(d.shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return lo + (hi - lo) * u
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ssm_a":            # mamba A_log in [0, ~ln16]
+        return torch.log(_uniform(d, generator, device, 1.0, 16.0)
+                         ).to(d.dtype)
+    if d.init == "ssm_dt":           # dt_bias ~ softplus^-1(U(1e-3, 0.1))
+        u = _uniform(d, generator, device, 1e-3, 0.1)
+        return torch.log(torch.expm1(u)).to(d.dtype)
     if d.init != "normal":
         raise NotImplementedError(f"init {d.init!r}: not ported yet")
     fan_in = d.fan_in or (d.shape[-2] if len(d.shape) >= 2 else d.shape[-1])
@@ -127,7 +140,9 @@ def unflatten(flat: dict[str, Any]) -> dict:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: str | torch.device) -> dict:
     """Random parameters with the JAX package's distributions
-    (``normal * 1/sqrt(fan_in)``, ones for norms). The generator lives on
+    (``normal * 1/sqrt(fan_in)``, ones for norms and the SSM skip ``D``,
+    ``log U(1, 16)`` for ``A_log`` and ``log expm1 U(1e-3, 0.1)`` for
+    ``dt_bias``). The generator lives on
     ``device``; its numbers differ from ``jax.random`` for the same seed."""
     device = torch.device(device)
     return unflatten({path: _init_leaf(d, generator, device)

@@ -1,4 +1,4 @@
-"""Parameter templates per architecture family — the dense template only.
+"""Parameter templates per architecture family: dense and ssm.
 
 The same flat paths and shapes as the JAX package: ``(in, out)`` weight
 layout and a leading ``num_layers`` axis on per-layer tensors.
@@ -28,12 +28,34 @@ def _ffn_defs(cfg: ArchConfig, L: int, prefix: str) -> dict[str, ParamDef]:
     }
 
 
+def _ssm_defs(cfg: ArchConfig, L: int, prefix: str) -> dict[str, ParamDef]:
+    d, t = cfg.d_model, cfg.dtype
+    di, h = cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    k = cfg.ssm_conv
+    return {
+        f"{prefix}/in_z": ParamDef((L, d, di), dtype=t),
+        f"{prefix}/in_x": ParamDef((L, d, di), dtype=t),
+        f"{prefix}/in_B": ParamDef((L, d, gn), dtype=t),
+        f"{prefix}/in_C": ParamDef((L, d, gn), dtype=t),
+        f"{prefix}/in_dt": ParamDef((L, d, h), dtype=t),
+        f"{prefix}/dt_bias": ParamDef((L, h), init="ssm_dt", dtype=t),
+        f"{prefix}/conv_x": ParamDef((L, k, di), dtype=t, fan_in=k),
+        f"{prefix}/conv_B": ParamDef((L, k, gn), dtype=t, fan_in=k),
+        f"{prefix}/conv_C": ParamDef((L, k, gn), dtype=t, fan_in=k),
+        f"{prefix}/A_log": ParamDef((L, h), init="ssm_a", dtype=t),
+        f"{prefix}/D": ParamDef((L, h), init="ones", dtype=t),
+        f"{prefix}/gate_norm": ParamDef((L, di), init="ones", dtype=t),
+        f"{prefix}/out_proj": ParamDef((L, di, d), dtype=t, fan_in=di),
+    }
+
+
 def _norm(L: int, d: int, name: str, t) -> dict[str, ParamDef]:
     return {name: ParamDef((L, d), init="ones", dtype=t)}
 
 
 def template(cfg: ArchConfig) -> dict[str, ParamDef]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r}: not ported yet")
     if cfg.qk_norm or cfg.meta_tokens or cfg.ffn != "swiglu":
         raise NotImplementedError(
@@ -45,6 +67,10 @@ def template(cfg: ArchConfig) -> dict[str, ParamDef]:
         "lm_head": ParamDef((d, V), dtype=t),
         "final_norm": ParamDef((d,), init="ones", dtype=t),
     }
+    if cfg.family == "ssm":
+        out.update(_norm(L, d, "layers/norm", t))
+        out.update(_ssm_defs(cfg, L, "layers/ssm"))
+        return out
     out.update(_norm(L, d, "layers/attn_norm", t))
     out.update(_attn_defs(cfg, L, "layers/attn"))
     out.update(_norm(L, d, "layers/ffn_norm", t))

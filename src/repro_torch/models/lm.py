@@ -1,16 +1,18 @@
-"""The language model, dense family only, with two entry points:
+"""The language model, dense and ssm families, with two entry points:
 
   prefill(params, tokens, max_len)  — full-sequence forward → (last logits, cache)
-  decode_step(params, cache, tokens) — one token against the KV cache
+  decode_step(params, cache, tokens) — one token against the cache
 
 Params are the nested dict of tensors that ``init`` (or
 ``weights.params_from_jax``) gives, with per-layer tensors stacked on a
 leading ``num_layers`` axis, as in the JAX package. The residual stream goes
-through the fused residual+RMSNorm kernel: ``h + attn`` is fused with the
-layer's ``ffn_norm``, and ``h + ffn`` with the next layer's ``attn_norm``
-(or ``final_norm`` after the last layer), so a forward launches it 2L+1
-times. Attention runs the flash kernel in prefill and the decode kernel in
-decode.
+through the fused residual+RMSNorm kernel: each sub-block's output is added
+to the stream in the same launch that normalises it for the next sub-block
+(or for ``final_norm`` after the last). A dense layer has two sub-blocks
+(attention, then the FFN), so a forward launches it 2L+1 times; an ssm layer
+has one (the Mamba-2 mixer, whose gated norm launches it once more), so
+again 2L+1. Attention runs the flash kernel in prefill and the decode kernel
+in decode; the mixer runs the SSD kernel in prefill.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from .attention import attention_decode, attention_prefill, update_kv_cache
 from .common import (ArchConfig, apply_rope, init_params, param_template,
                      unflatten)
 from .ffn import ffn_forward
+from .mamba import mamba_cache_shape, mamba_decode, mamba_prefill
+
+SubBlock = Callable[[int, torch.Tensor, dict], torch.Tensor]
 
 
 def _layer(tree: dict, index: int) -> dict:
@@ -37,7 +42,7 @@ def _layer(tree: dict, index: int) -> dict:
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig) -> None:
         super().__init__()
-        param_template(cfg)          # raises for what is not ported yet
+        param_template(cfg)          # raises for families not ported yet
         if cfg.sliding_window or cfg.kv_quant:
             raise NotImplementedError(
                 f"{cfg.name}: sliding-window and int8 KV caches are not "
@@ -71,44 +76,63 @@ class Model(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _stack(self, params: dict, h: torch.Tensor,
-               attn: Callable[[int, torch.Tensor, dict], torch.Tensor]
-               ) -> torch.Tensor:
-        """The dense layer stack from the embedded tokens to the logits;
-        ``attn(layer, x, attn_params)`` is the attention sub-block."""
+    def _stack(self, params: dict, tokens: torch.Tensor,
+               mixer: SubBlock) -> torch.Tensor:
+        """The layer stack from the tokens to the logits. ``mixer(layer, x,
+        layer_params)`` is the family's sequence mixer: attention (followed
+        by the FFN) for dense, the Mamba-2 block for ssm."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            blocks: list[tuple[str, SubBlock]] = [("norm", mixer)]
+        else:
+            blocks = [("attn_norm", lambda i, x, p: mixer(i, x, p["attn"])),
+                      ("ffn_norm",
+                       lambda i, x, p: ffn_forward(x, p["ffn"], cfg.ffn))]
         lp = params["layers"]
-        x, h = self._norm(h, None, lp["attn_norm"][0])
+        norms = [lp[name][i] for i in range(cfg.num_layers)
+                 for name, _ in blocks] + [params["final_norm"]]
+        x, h = self._norm(F.embedding(tokens, params["embed"]), None,
+                          norms[0])
+        k = 0
         for i in range(cfg.num_layers):
             p = _layer(lp, i)
-            x, h = self._norm(attn(i, x, p["attn"]), h, p["ffn_norm"])
-            nxt = (lp["attn_norm"][i + 1] if i + 1 < cfg.num_layers
-                   else params["final_norm"])
-            x, h = self._norm(ffn_forward(x, p["ffn"], cfg.ffn), h, nxt)
+            for _, block in blocks:
+                k += 1
+                x, h = self._norm(block(i, x, p), h, norms[k])
         return x @ params["lm_head"]
 
     # -- full-sequence forward (prefill) ----------------------------------------
     def forward(self, params: dict, tokens: torch.Tensor,
                 mode: str = "prefill") -> tuple[torch.Tensor, dict]:
         """tokens: (B, S) int. Returns (logits (B,S,V), cache) where the
-        cache holds each layer's K/V, stacked: (L, B, S, Hkv, dh)."""
+        cache holds each layer's entries stacked on a leading layer axis:
+        K/V (L, B, S, Hkv, dh) for dense; for ssm the SSD state
+        (L, B, H, N, P) fp32 and the conv carries (L, B, K-1, ·)."""
         if mode != "prefill":
             raise NotImplementedError(f"mode {mode!r}: not ported yet")
+        cfg = self.cfg
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        ks, vs = [], []
+        caches: list[dict] = []
 
-        def attn(i: int, x: torch.Tensor, ap: dict) -> torch.Tensor:
-            q, k, v = self._qkv(x, ap, positions)
-            ks.append(k)
-            vs.append(v)
-            o = attention_prefill(q, k, v)
-            return o.reshape(b, s, -1) @ ap["wo"]
+        if cfg.family == "ssm":
+            def mixer(i: int, x: torch.Tensor, p: dict) -> torch.Tensor:
+                y, c = mamba_prefill(x, p["ssm"], cfg)
+                caches.append(c)
+                return y
+        else:
+            positions = torch.arange(s, device=tokens.device)[None].expand(
+                b, s)
 
-        logits = self._stack(params, F.embedding(tokens, params["embed"]),
-                             attn)
-        return logits, {"layers": {"k": torch.stack(ks),
-                                   "v": torch.stack(vs)}}
+            def mixer(i: int, x: torch.Tensor, ap: dict) -> torch.Tensor:
+                q, k, v = self._qkv(x, ap, positions)
+                caches.append({"k": k, "v": v})
+                o = attention_prefill(q, k, v)
+                return o.reshape(b, s, -1) @ ap["wo"]
+
+        logits = self._stack(params, tokens, mixer)
+        return logits, {"layers": {
+            name: torch.stack([c[name] for c in caches])
+            for name in caches[0]}}
 
     def prefill(self, params: dict, tokens: torch.Tensor,
                 max_len: int | None = None) -> tuple[torch.Tensor, dict]:
@@ -125,11 +149,15 @@ class Model(nn.Module):
 
     def _grow_cache(self, cache: dict, batch_size: int, s: int,
                     max_len: int) -> dict:
-        """Zero-pad the sequence axis up to the decode-time template."""
+        """Zero-pad the sequence axis up to the decode-time template; the
+        SSM leaves already have their final shapes and stay as they are."""
         template = self.cache_template(batch_size, max_len)
         out = {}
         for name, x in cache["layers"].items():
             shape, dtype = template[f"layers/{name}"]
+            if tuple(x.shape) == shape:
+                out[name] = x
+                continue
             grown = torch.zeros(shape, dtype=dtype, device=x.device)
             grown[:, :, :s] = x
             out[name] = grown
@@ -138,31 +166,51 @@ class Model(nn.Module):
     # -- decode ----------------------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, dict]:
-        """tokens: (B, 1). Writes the token's K/V at ``cache['pos']`` in
-        place and attends to rows ``<= pos``; returns (logits (B, V), the
-        cache with pos + 1). ``pos`` stays on the device: no host sync."""
+        """tokens: (B, 1). Updates the cache in place: dense writes the
+        token's K/V at ``cache['pos']`` and attends to rows ``<= pos``; ssm
+        overwrites each layer's SSD state and conv carries. Returns
+        (logits (B, V), the cache with pos + 1). ``pos`` stays on the
+        device: no host sync."""
+        cfg = self.cfg
         b = tokens.shape[0]
         pos = cache["pos"]
-        positions = pos.reshape(1, 1).expand(b, 1)
-        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+        layers = cache["layers"]
 
-        def attn(i: int, x: torch.Tensor, ap: dict) -> torch.Tensor:
-            q, k_new, v_new = self._qkv(x, ap, positions)
-            update_kv_cache(kc[i], vc[i], k_new, v_new, pos)
-            o = attention_decode(q, kc[i], vc[i], pos)
-            return o.reshape(b, 1, -1) @ ap["wo"]
+        if cfg.family == "ssm":
+            def mixer(i: int, x: torch.Tensor, p: dict) -> torch.Tensor:
+                y, new = mamba_decode(
+                    x, p["ssm"], cfg, {n: c[i] for n, c in layers.items()})
+                for name, c in layers.items():
+                    c[i].copy_(new[name])
+                return y
+        else:
+            positions = pos.reshape(1, 1).expand(b, 1)
+            kc, vc = layers["k"], layers["v"]
 
-        logits = self._stack(params, F.embedding(tokens, params["embed"]),
-                             attn)
-        return logits[:, 0], {"pos": pos + 1, "layers": cache["layers"]}
+            def mixer(i: int, x: torch.Tensor, ap: dict) -> torch.Tensor:
+                q, k_new, v_new = self._qkv(x, ap, positions)
+                update_kv_cache(kc[i], vc[i], k_new, v_new, pos)
+                o = attention_decode(q, kc[i], vc[i], pos)
+                return o.reshape(b, 1, -1) @ ap["wo"]
+
+        logits = self._stack(params, tokens, mixer)
+        return logits[:, 0], {"pos": pos + 1, "layers": layers}
 
     # -- cache construction ------------------------------------------------------
     def cache_template(self, batch: int, max_len: int) -> dict[str, tuple]:
-        """Flat path -> (shape, dtype)."""
+        """Flat path -> (shape, dtype). Dense: K/V (L,B,max_len,Hkv,dh);
+        ssm: the per-layer ``mamba_cache_shape`` stacked on L (max_len does
+        not enter)."""
         cfg = self.cfg
+        out: dict[str, tuple] = {"pos": ((), torch.int32)}
+        if cfg.family == "ssm":
+            for name, (shape, dtype) in mamba_cache_shape(cfg, batch).items():
+                out[f"layers/{name}"] = ((cfg.num_layers, *shape), dtype)
+            return out
         kv = (cfg.num_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"pos": ((), torch.int32), "layers/k": (kv, cfg.dtype),
-                "layers/v": (kv, cfg.dtype)}
+        out["layers/k"] = (kv, cfg.dtype)
+        out["layers/v"] = (kv, cfg.dtype)
+        return out
 
     def init_cache(self, batch: int, max_len: int,
                    device: str | torch.device = "cuda") -> dict:

@@ -1,7 +1,8 @@
 """The port's serving runtime and launcher on the CPU: the JAX Server and
 the port's Server give identical completions from their own logs on the
-same float32 params; the port of tests/test_serve_runtime.py; and the
-entry points refuse to run on a card that is not there."""
+same float32 params, for tinyllama and mamba2; the port of
+tests/test_serve_runtime.py; and the entry points refuse to run on a card
+that is not there."""
 import json
 
 import pytest
@@ -43,20 +44,22 @@ def _port_setup(tmp_path, n_requests=6):
     return log, model, params
 
 
-def test_port_server_matches_jax_server(tmp_path):
+def _server_parity(tmp_path, arch: str, prompt_len: int) -> None:
     """Same 6 requests, same float32 params: identical completion ids."""
-    _, jmodel, jparams, tcfg, tparams = reduced_pair()
+    _, jmodel, jparams, tcfg, tparams = reduced_pair(arch=arch)
     jlog = JaxPartitionedLog(tmp_path / "jax")
     tlog = PartitionedLog(tmp_path / "port")
     _requests(jlog, 6)
     _requests(tlog, 6)
     jsrv = JaxServer(jmodel, jparams,
                      JaxConsumerGroup(jlog, "requests", "s").add_member("a"),
-                     jlog, JaxServeConfig(batch_size=4, prompt_len=16,
+                     jlog, JaxServeConfig(batch_size=4,
+                                          prompt_len=prompt_len,
                                           max_new_tokens=6))
     tsrv = Server(Model(tcfg), tparams,
                   ConsumerGroup(tlog, "requests", "s").add_member("a"), tlog,
-                  ServeConfig(batch_size=4, prompt_len=16, max_new_tokens=6),
+                  ServeConfig(batch_size=4, prompt_len=prompt_len,
+                              max_new_tokens=6),
                   device="cpu")
     while jsrv.serve_once():
         pass
@@ -69,6 +72,16 @@ def test_port_server_matches_jax_server(tmp_path):
         assert got[rid]["text"] == want[rid]["text"]
     jlog.close()
     tlog.close()
+
+
+def test_port_server_matches_jax_server(tmp_path):
+    _server_parity(tmp_path, "tinyllama-1.1b", 16)
+
+
+def test_port_server_matches_jax_server_mamba2(tmp_path):
+    """The prompts are right-padded, so mamba2 runs its SSM over the PAD
+    tokens before decoding, on both sides."""
+    _server_parity(tmp_path, "mamba2-370m", 40)
 
 
 def test_server_serves_all_requests(tmp_path):
@@ -110,6 +123,14 @@ def test_launcher_serves_on_cpu(tmp_path, capsys):
                        "--batch", "2", "--prompt-len", "16", "--max-new",
                        "3", "--workdir", str(tmp_path)])
     assert "served 3, completions landed: 3" in capsys.readouterr().out
+
+
+def test_launcher_serves_mamba2_on_cpu(tmp_path, capsys):
+    launch_serve.main(["--arch", "mamba2-370m", "--reduced", "--device",
+                       "cpu", "--requests", "5", "--batch", "2",
+                       "--prompt-len", "20", "--max-new", "3", "--workdir",
+                       str(tmp_path)])
+    assert "served 5, completions landed: 5" in capsys.readouterr().out
 
 
 def test_cuda_entry_points_raise_without_a_card(tmp_path):

@@ -56,15 +56,14 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def reduced_pair(dtype=jnp.float32, seed: int = 0):
-    """The reduced tinyllama config in ``dtype`` on both sides, with the
+def reduced_pair(dtype=jnp.float32, seed: int = 0,
+                 arch: str = "tinyllama-1.1b"):
+    """The reduced config of ``arch`` in ``dtype`` on both sides, with the
     JAX ``Model.init`` params and the same params carried into the port.
     Returns (jax cfg, jax model, jax params, port cfg, port params)."""
-    jcfg = dataclasses.replace(jax_configs.get_reduced("tinyllama-1.1b"),
-                               dtype=dtype)
+    jcfg = dataclasses.replace(jax_configs.get_reduced(arch), dtype=dtype)
     tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    tcfg = dataclasses.replace(configs.get_reduced("tinyllama-1.1b"),
-                               dtype=tdt)
+    tcfg = dataclasses.replace(configs.get_reduced(arch), dtype=tdt)
     jmodel = JaxModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     return jcfg, jmodel, jparams, tcfg, params_from_jax(flatten(jparams))
